@@ -1,6 +1,6 @@
-"""openpbso_tpu — a TPU-native physics-based modal sound framework.
+"""openpbso_tpu — an accelerator-native physics-based modal sound framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of openpbso
+A from-scratch JAX/XLA re-design of the capabilities of openpbso
 (the KleinPAT runtime): real-time rigid-body impact/contact sound synthesis
 from precomputed eigenmodes, modal materials, and FFAT acoustic-transfer maps.
 
@@ -11,7 +11,7 @@ Layer map:
                profile synthesis, FFAT cubemap lookup
 - ``models``   model/scene assembly (mesh + modes + material + maps)
 - ``runtime``  the block solver, host session, streaming engine, audio IO
-- ``parallel`` multi-chip sharding (mesh + shard_map block step)
+- ``parallel`` multi-device sharding (mesh + shard_map block step)
 - ``utils``    float64 oracle, synthetic assets, profiling
 - ``apps``     CLI tools mirroring the reference binaries
 """

@@ -1,6 +1,6 @@
 """fetch_dataset — manifest-driven dataset staging + meta generation.
 
-TPU-native equivalent of the reference's dataset tooling:
+This framework's equivalent of the reference's dataset tooling:
 
 - ``scripts/download.py`` (reference): reads ``ran_obj_mat.txt`` lines of
   ``<remote_path> <material>``, stages one ``<ID>_tetmesh`` directory per

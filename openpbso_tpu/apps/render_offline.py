@@ -11,7 +11,7 @@ scenarios (BASELINE.md 'Eval configs'):
 5. streaming mode: 128-sample blocks with interactive hit events
 
 Usage: python -m openpbso_tpu.apps.render_offline [--out-dir DIR]
-       [--config N] [--backend blocked|scan|pallas]
+       [--config N] [--backend blocked|scan]
 """
 from __future__ import annotations
 
@@ -34,8 +34,6 @@ def _session_for(num_modes, num_objects, block, backend, with_ffat,
     from ..runtime.session import ModalSession
     from ..runtime.solver import SolverConfig
     from ..utils.synth import CERAMIC, synth_fatcube, synth_mode_data
-    if backend == "pallas":
-        from ..ops import pallas_integrator  # noqa: F401
 
     md = synth_mode_data(num_modes, 32, seed=seed)
     bank = bank_from_material(CERAMIC.density, md.omega_squared,
@@ -162,11 +160,13 @@ def main(argv=None) -> int:
     p.add_argument("--config", type=int, default=0,
                    help="run one config (1-5); 0 = all")
     p.add_argument("--backend", default="blocked",
-                   choices=["blocked", "scan", "pallas"])
+                   choices=["blocked", "scan"])
     p.add_argument("--doppler", action="store_true",
                    help="config 3: apply physical propagation delay "
                         "(Doppler) to the moving-listener render")
     args = p.parse_args(argv)
+    from ..utils.platform import enable_compile_cache
+    enable_compile_cache()
     os.makedirs(args.out_dir, exist_ok=True)
     configs = [args.config] if args.config else [1, 2, 3, 4, 5]
     results = []

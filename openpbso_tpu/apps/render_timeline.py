@@ -47,6 +47,7 @@ from functools import partial
 import numpy as np
 
 from ..config import DEFAULT_BLOCK, FILE_NOT_EXIST, SAMPLE_RATE
+from ..utils.platform import PLATFORMS, enable_compile_cache, force_platform
 
 
 def listener_blocks(keyframes: list[dict], n_blocks: int,
@@ -263,17 +264,17 @@ def main(argv=None) -> int:
     p.add_argument("-p", dest="ffat_map", default=FILE_NOT_EXIST)
     p.add_argument("--block", type=int, default=DEFAULT_BLOCK)
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "blocked", "scan", "pallas"])
+                   choices=["auto", "blocked", "scan"])
     p.add_argument("--instances", type=int, default=1)
     p.add_argument("--no-transfer", action="store_true")
     p.add_argument("--listener", default="1.0,0.5,0.5")
     p.add_argument("--smooth-transfer", action="store_true")
     p.add_argument("--demo-synth", action="store_true")
-    p.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    p.add_argument("--platform", default=None, choices=list(PLATFORMS))
     p.add_argument("--blocks-per-dispatch", type=int, default=64)
     args = p.parse_args(argv)
-    from ..utils.platform import force_platform
     force_platform(args.platform)
+    enable_compile_cache()
     with open(args.timeline) as f:
         timeline = json.load(f)
     model, session = make_session(args)

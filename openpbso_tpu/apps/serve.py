@@ -12,6 +12,7 @@ from __future__ import annotations
 import argparse
 
 from ..config import DEFAULT_BLOCK, FILE_NOT_EXIST
+from ..utils.platform import PLATFORMS, enable_compile_cache, force_platform
 
 
 def parse_args(argv=None):
@@ -27,7 +28,7 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=9473)
     p.add_argument("--block", type=int, default=DEFAULT_BLOCK)
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "blocked", "scan", "pallas"])
+                   choices=["auto", "blocked", "scan"])
     p.add_argument("--instances", type=int, default=1)
     p.add_argument("--lookahead", type=int, default=1)
     p.add_argument("--no-transfer", action="store_true")
@@ -42,7 +43,7 @@ def parse_args(argv=None):
                         "{'instances': [{'meta': path, 'position': [x,y,z],"
                         " 'gain': g, 'pan': p}, ...], optional "
                         "'listener_offsets' [[...]] or 'binaural': true}")
-    p.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    p.add_argument("--platform", default=None, choices=list(PLATFORMS))
     p.add_argument("--one-shot", action="store_true",
                    help="serve a single connection then exit")
     p.add_argument("--qnorm-every", type=int, default=None,
@@ -88,7 +89,6 @@ def parse_args(argv=None):
             raise SystemExit("--live-doppler needs a STATIC "
                              "--per-client-listeners count (dynamic "
                              "buckets rebuild at a new L)")
-    from ..utils.platform import force_platform
     force_platform(args.platform)
     return args
 
@@ -283,6 +283,7 @@ def build_server(args):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    enable_compile_cache()
     srv = build_server(args)
     kind = "http/websocket" if args.web else "pbso protocol"
     print(f"serving {kind} on {srv.address[0]}:{srv.address[1]} "

@@ -14,15 +14,16 @@ for the reference can be consumed unchanged:
 - ``DEFAULT_AUDIBLE_FREQ``: mode-culling threshold when no freq_threshold.txt
   exists (reference tools/real_time_modal_sound.cpp:327-329).
 
-The TPU build prefers block sizes that tile onto the VPU/MXU lane structure
-(multiples of 128); ``FRAMES_PER_BUFFER`` (513, an odd size inherited from the
-reference's PortAudio setup) is kept for parity renders, while the native block
-size ``DEFAULT_BLOCK`` = 512 is used by the streaming engine.
+Device blocks are powers of two (the per-block FFT conv pads to 2S, and the
+span's chunk sizes divide the block); ``FRAMES_PER_BUFFER`` (513, an odd size
+inherited from the reference's PortAudio setup) is kept for parity renders,
+while the native block size ``DEFAULT_BLOCK`` = 512 is used by the streaming
+engine.
 """
 
 SAMPLE_RATE = 44100
 FRAMES_PER_BUFFER = 513          # reference block size (kept for parity)
-DEFAULT_BLOCK = 512              # TPU-native block size (lane-aligned)
+DEFAULT_BLOCK = 512              # native device block size
 
 MODAL_GAIN = 1e9                 # c3 gain        (modal_integrator.h:99)
 UNIT_TRANSFER = 1e7              # unit transfer  (modal_solver.h:91)

@@ -5,7 +5,7 @@ File layout (reference ModeData.h:62-107): little-endian
 (omega^2 * density, i.e. *not* divided by density), then ``nModes`` rows of
 ``nDOF`` float64 modal displacements (3 DOF per surface vertex).
 
-The TPU build loads straight into dense numpy arrays:
+This build loads straight into dense numpy arrays:
 ``omega_squared [M]`` and ``modes [M, nDOF]`` (row per mode) so that modal
 force projection is a single matvec.
 """

@@ -2,7 +2,7 @@
 
 The reference's scripts/create_training_set.py drives an *external*
 ``simulator`` binary over 6 materials x objects to produce impact-sound
-banks (scripts/util.py:8-9 — that binary is not in the repo). The TPU build
+banks (scripts/util.py:8-9 — that binary is not in the repo). This build
 closes the loop: the training clips are synthesized by this framework's own
 engine, batched on device — one render per (material, object, hit).
 
@@ -50,7 +50,7 @@ def synthesize_dataset(
     seed: int = 0,
     backend: str = "blocked",
 ) -> list[TrainingClip]:
-    """Render impact clips with the TPU engine, one batch per material."""
+    """Render impact clips with the engine, one batch per material."""
     import jax.numpy as jnp
 
     from ..ops.coeffs import bank_from_material

@@ -8,7 +8,7 @@ energy, entropy, spectral centroid/spread/entropy/flux/rolloff, 13 MFCCs,
 
 This module implements the same 34-feature layout in pure numpy (no
 pyAudioAnalysis dependency) so the classification study reproduces on
-synthesized audio from the TPU engine itself — closing the loop the
+synthesized audio from this engine itself — closing the loop the
 reference needed an external simulator binary for (scripts/util.py:8-9).
 """
 from __future__ import annotations

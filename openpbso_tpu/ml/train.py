@@ -15,6 +15,8 @@ import json
 
 import numpy as np
 
+from ..utils.platform import PLATFORMS, enable_compile_cache, force_platform
+
 
 def _require_sklearn():
     try:
@@ -104,14 +106,10 @@ def main(argv=None) -> int:
     p.add_argument("--modes", type=int, default=32)
     p.add_argument("--seconds", type=float, default=0.4)
     p.add_argument("--out", default="material_study.json")
-    p.add_argument("--platform", default=None, choices=["cpu", "tpu"])
+    p.add_argument("--platform", default=None, choices=list(PLATFORMS))
     args = p.parse_args(argv)
-    if args.platform == "cpu":
-        import jax
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
+    force_platform(args.platform)
+    enable_compile_cache()
 
     from .dataset import features_matrix, synthesize_dataset
     clips = synthesize_dataset(objects_per_material=args.objects,

@@ -74,7 +74,7 @@ def load_native():
 class NativeSpscRing:
     """Wait-free SPSC ring of fixed-size float blocks (native-backed).
 
-    TPU-build counterpart of the reference's moodycamel SPSC queues
+    This build's counterpart of the reference's moodycamel SPSC queues
     (external/readerwriterqueue.h): the synthesis thread pushes, the audio
     side pops; full/empty never block, matching the reference's
     try_enqueue/try_dequeue discipline.

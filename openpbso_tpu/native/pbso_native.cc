@@ -1,9 +1,9 @@
-// pbso_native — native runtime support for the TPU modal sound engine.
+// pbso_native — native runtime support for the modal sound engine.
 //
 // Two components, exposed through a C ABI for ctypes:
 //
 // 1. A wait-free single-producer/single-consumer ring of fixed-size audio
-//    blocks. This is the TPU build's counterpart of the reference's vendored
+//    blocks. This is this build's counterpart of the reference's vendored
 //    moodycamel SPSC queues (external/readerwriterqueue.h): the synthesis
 //    thread pushes device-computed blocks, the audio callback pops them,
 //    and neither side ever takes a lock or allocates. Unlike the Python

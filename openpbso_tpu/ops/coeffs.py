@@ -2,7 +2,7 @@
 
 The reference time-steps N decoupled damped oscillators with a 2nd-order real
 IIR ``q_k = c1 q_{k-1} + c2 q_{k-2} + c3 Q_k`` (modal_integrator.h:88-113).
-The TPU build reformulates each oscillator as a *first-order complex*
+This build reformulates each oscillator as a *first-order complex*
 recurrence
 
     z_k = lam * z_{k-1} + b * Q_k,      q_k = Im(z_k)
@@ -10,7 +10,7 @@ recurrence
 with ``lam = eps * e^{i theta}`` (the reference's own eps/theta,
 modal_integrator.h:89-90) and ``b = c3 * (cot(theta) + i)``. This is exactly
 equivalent (lam, conj(lam) are the roots of x^2 - c1 x - c2) and unlocks the
-TPU-native formulations:
+batched device formulations:
 
 - a 1-step ``lax.scan`` (state = one complex number per mode), and
 - the *block form*: over S samples, ``z_s = lam^{s+1} z_{-1} +

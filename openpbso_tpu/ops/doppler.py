@@ -84,7 +84,8 @@ def _doppler_mix_multi(hist, sound, d0, d1, gains):
 
     ``hist`` [O, L, H], ``sound`` [O, L, N] — the chunked span's
     multi-listener layout (ops/span.py::_integrate_span_chunked: listener
-    axis INSIDE, what the MXU produces contiguously). Listener l's
+    axis INSIDE, what the per-object contractions produce contiguously).
+    Listener l's
     channel gathers each object's signal AS HEARD BY l (the sound row
     already carries l's transfer amplitude) at l's own retarded time;
     delays ramp d0 -> d1 per (object, listener). Returns

@@ -12,7 +12,7 @@ multiple. Geometry (bboxes, face low-corners, strides) is carried per
 (object, mode) but stored once (leading axis 1) when all objects share the
 same model — the common instanced-scene case.
 
-All math is elementwise/gather (VPU-friendly), runs at listener-update rate
+All math is elementwise/gather, runs at listener-update rate
 (UI rate, not audio rate), and differentiates cleanly if needed.
 """
 from __future__ import annotations

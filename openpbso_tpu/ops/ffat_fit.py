@@ -302,8 +302,8 @@ def compress_map(m: FatcubeMap, jpeg_quality: int | None = None
     pipeline); an int routes each face image through an actual JPEG
     write/read-back at that quality via PIL, reproducing the reference's
     OpenCV imwrite/imread at IMWRITE_JPEG_QUALITY=quality (the tool uses
-    65). Measured errors vs the uncompressed map: docs/PERF.md
-    'FFAT compression'.
+    65). Measured errors vs the uncompressed map: docs/PARITY.md
+    'Accuracy'.
     """
     psi_c = np.empty_like(m.psi)
     for face in range(6):

@@ -2,7 +2,7 @@
 
 The reference keeps a linked list of polymorphic ``Force`` objects per solver
 and calls virtual ``Add`` per block (modal_solver.h:206-240, forces.h). On
-TPU, forces become *data*: a fixed-size slot table of typed records, and the
+the device, forces become *data*: a fixed-size slot table of typed records, and the
 per-block time profile is synthesized on device branchlessly from the global
 sample clock. A slot's lifetime is a pure function of its start sample, so the
 device carries no per-slot state — the host recycles expired slots.
@@ -353,7 +353,7 @@ def _noise_for_blocks(key_data: jax.Array, block_start: jax.Array,
 
     Returns [O, n_blocks, S] — object-major, the layout every consumer
     contracts in, so no [X, O, S] -> [O, N] transpose ever materializes
-    (measured 5.6 ms/span of pure HBM traffic at the north star). NOTE
+    (a pure memory-traffic pass over the largest noise tensor). NOTE
     the session's int32 clock rebase (runtime/session.py::_rebase_clock)
     wraps block indices every 2^30 samples (~6.7 h at 44.1 kHz), so the
     noise stream repeats with that period — statistically irrelevant and

@@ -16,7 +16,7 @@ copied):
   far ear (theta is the angle between the source direction and the ear
   direction).
 
-TPU-first design: the per-(object, ear) filter is materialized host-side
+Design: the per-(object, ear) filter is materialized host-side
 as a short FIR (fractional-delay windowed sinc convolved with the
 bilinear-transformed shadow filter), and a whole block of O objects is
 rendered in ONE frequency-domain mix on device:
@@ -24,7 +24,7 @@ rendered in ONE frequency-domain mix on device:
     mix_c = sum_o  h_{o,c} (*) sound_o
 
 i.e. an rfft over the block, one [O,F] x [O,C,F] reduce, one irfft — the
-same MXU/VPU-friendly shape as the integrator's causal conv — with the
+same shape as the integrator's causal conv — with the
 (T-1)-sample convolution tail carried across blocks as explicit state.
 """
 from __future__ import annotations

@@ -13,7 +13,7 @@ produce over a block of S samples
 Backends:
 
 - ``scan``    — lax.scan over samples; reference semantics on any platform.
-- ``blocked`` — the TPU-native block form: with lam-power tables
+- ``blocked`` — the matmul block form: with lam-power tables
   ``P_d = lam^d`` (host-precomputed float64, see ops/coeffs.py),
 
       sound = Im( sum_m t_m P_{s+1} z_{-1} )         [matmul over modes]
@@ -21,9 +21,8 @@ Backends:
       z_out = P_S z_{-1} + b space sum_j P_{S-1-j} time_j        [matmul]
 
   i.e. the whole block is a handful of mode-reduction matmuls plus one length-S
-  causal convolution (done via FFT) — no serial dependency, MXU-shaped, and
-  per-block rather than per-sample f32 phase rounding.
-- ``pallas_*`` variants live in ops/pallas_integrator.py.
+  causal convolution (done via FFT) — no serial dependency, matmul-shaped,
+  and per-block rather than per-sample f32 phase rounding.
 
 The qnorm channel (per-mode energy telemetry feeding the transfer-ball HUD) is
 optional: in the blocked form it is the only term that requires materializing
@@ -40,14 +39,12 @@ import jax.numpy as jnp
 from .coeffs import ModalBank
 
 
-# TPU MXU default is ONE bf16 pass per f32 matmul: measured -52.6 dB vs
-# CPU at [256,1024]x[1024,512] (small contractions lower to the full-f32
-# VPU instead, which masked this at toy scale). The -60 dB contract
-# requires a multi-pass f32 algorithm on every correctness-critical
-# contraction, so precision is pinned, never defaulted. Measured ladder
-# at that shape: default -52.6 dB / HIGH (bf16x3) -97.8 dB, 27% cheaper /
-# HIGHEST (default here) -127.7 dB. OPENPBSO_MATMUL_PRECISION=high trades
-# ~30 dB of margin for throughput at import time. (docs/PERF.md)
+# Every correctness-critical contraction pins its precision instead of
+# taking XLA's default: on an NVIDIA GPU the default float32 matmul runs in
+# TF32 (a 10-bit mantissa), whose error against the -60 dB oracle contract
+# has not been measured. HIGHEST is true float32 with no TF32. On the GPU
+# OPENPBSO_MATMUL_PRECISION=high selects TF32 at import time, for precision
+# experiments only (PERF.md lists what is measured).
 import os as _os
 
 PRECISION = {
@@ -113,11 +110,10 @@ def _causal_conv_fft(g: jax.Array, f: jax.Array) -> jax.Array:
 def _causal_conv(g: jax.Array, f: jax.Array) -> jax.Array:
     """Per-object causal convolution: out[s] = sum_{j<=s} g[s-j] f[j].
 
-    g, f: [O, S] -> [O, S]. FFT form on every platform. Measured and
-    rejected alternatives (docs/PERF.md): a grouped lax.conv direct form
-    was 6x SLOWER on TPU (grouped convs lower to per-group loops), and
-    the dense-input deviation it was meant to fix turned out to be
-    einsum precision, not the FFT."""
+    g, f: [O, S] -> [O, S]. FFT form on every platform (a grouped
+    lax.conv direct form lowers to per-group loops, and the dense-input
+    deviation it was once meant to fix was einsum precision, not the
+    FFT)."""
     return _causal_conv_fft(g, f)
 
 
@@ -384,33 +380,18 @@ BACKENDS = {
 
 
 def resolve_backend_name(name: str, bank: ModalBank | None = None) -> str:
-    """'auto' -> the best backend for the platform and bank layout.
-
-    On TPU: the blocked matmul form wins for *shared* banks (one [M, S]
-    table, pure MXU); the fused Pallas kernel wins for *heterogeneous*
-    banks (per-object tables would be [O, M, S]-sized HBM traffic in the
-    blocked form). Elsewhere: blocked (the Pallas interpreter is
-    correctness-only on CPU).
-    """
+    """'auto' -> the per-block form the bank can run: ``blocked`` when it
+    carries lam-power tables, ``scan`` for a table-less bank (built
+    without block_size; blocked asserts on the missing tables)."""
     if name != "auto":
         return name
     if bank is not None and bank.pow_re is None:
-        # table-less bank (built without block_size): scan is the only
-        # per-block form that can run it — blocked/pallas assert on the
-        # missing lam-power tables
         return "scan"
-    import jax
-    if jax.default_backend() == "tpu" and (
-            bank is None or not bank.shared_tables):
-        from . import pallas_integrator  # noqa: F401 (registers 'pallas')
-        return "pallas"
     return "blocked"
 
 
 def get_backend(name: str, bank: ModalBank | None = None):
     name = resolve_backend_name(name, bank)
-    if name == "pallas" and name not in BACKENDS:
-        from . import pallas_integrator  # noqa: F401
     if name in BACKENDS:
         return BACKENDS[name]
     raise KeyError(f"unknown integrator backend {name!r}; "

@@ -11,9 +11,9 @@ host-side exactly as in ModalSession — the jitted scatter/update helpers are
 sharding-transparent (XLA keeps the .at[].set updates on the owning shard).
 Only the per-block/per-span dispatch functions are replaced with mesh
 variants, cached per (kind, qnorm, sustained, slot-bucket, span length) like
-the single-chip jit cache. Per block, the only cross-chip traffic is one
-[S, C] stereo mix psum (plus the mode-axis partial-transfer psum fused into
-the same program) riding ICI.
+the single-device jit cache. Per block, the only cross-device traffic is
+one [S, C] stereo mix psum (plus the mode-axis partial-transfer psum fused
+into the same program) over the device interconnect.
 """
 from __future__ import annotations
 

@@ -1,19 +1,21 @@
 """Multi-chip scale-out: shard_map over an ('obj', 'mode') device mesh.
 
 The reference is strictly single-process; its only "communication layer" is
-intra-process SPSC queues (SURVEY.md section 5). The TPU-native scale-out
+intra-process SPSC queues (SURVEY.md section 5). The multi-device scale-out
 shards the embarrassingly parallel axes of the workload:
 
 - ``obj``  — objects are fully independent (data parallel); each shard
   integrates its own object rows. The only cross-object communication is the
-  stereo mixdown sum, a single ``psum`` over the object axis riding ICI.
-- ``mode`` — a mode bank can be split across chips (tensor parallel); each
+  stereo mixdown sum, a single ``psum`` over the object axis.
+- ``mode`` — a mode bank can be split across devices (tensor parallel); each
   shard owns a mode slice, and the per-sample transfer dot becomes a partial
   sum reduced with the same ``psum``.
 
 Everything else in the block step is elementwise in (object, mode), so the
-per-block communication volume is exactly one [S, 2] stereo block per chip —
-a few KB over ICI per 11.6 ms of audio.
+per-block communication volume is exactly one [S, 2] stereo block per
+device — a few KB per 11.6 ms of audio. The mesh shape follows the
+algorithm: on an all-to-all interconnect (four NVLink-joined GPUs) every
+device reaches every other at the same rate.
 """
 from __future__ import annotations
 
@@ -169,7 +171,7 @@ def make_sharded_multi(mesh: Mesh, bank: ModalBank, *, n_blocks: int,
                        num_listeners: int = 1,
                        complex_rows: bool = False):
     """SPMD multi-block scan: n_blocks per dispatch, one [S,C] psum per
-    block riding ICI (the only cross-chip traffic).
+    block (the only cross-device traffic).
 
     Returns ``step(state, bank, gains) -> (state', mix [n_blocks*S, C])``.
     """
@@ -203,8 +205,11 @@ def span_table_specs(tables) -> object:
     spec = (P(None, None, "mode") if tables.shared
             else P("obj", None, "mode"))
     if isinstance(tables, ChunkSpanTables):
+        # superchunk powers lam^(dC) ([Og, G+1, M]) shard like the baby
+        # tables; None when the span keeps the single-level scan
+        sup = None if tables.s_re is None else spec
         return ChunkSpanTables(b_re=spec, b_im=spec,
-                               n_chunks=tables.n_chunks)
+                               n_chunks=tables.n_chunks, s_re=sup, s_im=sup)
     return SpanTables(a_re=spec, a_im=spec, b_re=spec, b_im=spec)
 
 
@@ -249,7 +254,7 @@ def make_sharded_span(mesh: Mesh, bank: ModalBank, tables, *,
         # the mix is linear in sound, so the mode-partial sound reduces
         # AFTER the mixdown: ONE [N, C] psum over both axes instead of
         # psumming the full [O, (L,) N] sound tensor over 'mode' (O-fold
-        # more ICI traffic for the same result)
+        # more interconnect traffic for the same result)
         mix = _mixdown_span(sound, gains)
         mix = jax.lax.psum(mix, ("mode", "obj"))
         new_state = dataclasses.replace(
@@ -348,9 +353,8 @@ def make_sharded_decay_step(mesh: Mesh, bank: ModalBank, *,
             state.z_re, state.z_im, bank, state.transfer, compute_qnorm,
             transfer_im=state.transfer_im)
         sound = jax.lax.psum(sound, "mode")
-        # _mixdown pins full-f32 precision (the MXU default is one bf16
-        # pass, -52.6 dB, below the -60 dB oracle contract) and handles
-        # the [L, O, S] multi-listener layout
+        # _mixdown pins full-f32 precision (ops/integrator.PRECISION) and
+        # handles the [L, O, S] multi-listener layout
         mix = _mixdown(sound, gains)
         mix = jax.lax.psum(mix, "obj")
         new_state = dataclasses.replace(

@@ -1,6 +1,6 @@
 """StreamingEngine — the real-time producer/consumer pipeline.
 
-TPU-native re-design of the reference's three-thread architecture
+A device-batched re-design of the reference's three-thread architecture
 (UI thread -> [SPSC queues] -> sim thread -> [sound queue] -> audio callback;
 modal_solver.h:100-141, real_time_modal_sound.cpp:527-553):
 
@@ -78,7 +78,7 @@ class ControlEvent:
 class LatestWins:
     """Capacity-1 slot: writers overwrite, reader takes-and-clears.
 
-    The TPU analog of the reference's capacity-1 trans/arprm queues
+    The analog of the reference's capacity-1 trans/arprm queues
     (modal_solver.h:107-109): only the newest value matters.
     """
 
@@ -168,10 +168,10 @@ class StreamingEngine:
         record: bool = False,
     ):
         """``lookahead`` > 1 synthesizes that many blocks per device
-        dispatch (step_multi) — latency rises to lookahead * block/rate but
-        per-dispatch overhead amortizes, which is the difference between
-        underrun and headroom on high-RTT device links (e.g. a tunneled
-        TPU). Events still apply between dispatches.
+        dispatch (a span, or step_multi) — latency rises to
+        lookahead * block/rate but per-dispatch overhead amortizes, which
+        buys headroom when the host path is slow. Events still apply
+        between dispatches.
 
         ``record=True`` keeps a host-side log of every applied event with
         its sample time; ``export_timeline()`` turns it into the JSON
@@ -514,8 +514,7 @@ class StreamingEngine:
                 and self.session.qnorm_probe_eligible():
             # keep the span AND the telemetry: probe the pre-span state's
             # ring-down energy in a parallel dispatch instead of breaking
-            # the span for a synced per-block qnorm step (docs/PERF.md
-            # 4-min soak: that sync was the dominant health penalty)
+            # the span for a synced per-block qnorm step
             qnorm = self.session.qnorm_probe()
             mix = self._span_mix(self.lookahead)
             mix_np = np.asarray(mix)
@@ -528,9 +527,9 @@ class StreamingEngine:
                     for i in range(self.lookahead)]
         if self.lookahead == 1 or want_qnorm:
             if not want_qnorm and use_span:
-                # single-block span dispatch: beats BOTH per-block forms
-                # (blocked for shared banks, the fused Pallas kernel for
-                # hetero) — docs/PERF.md single-block span measurements
+                # single-block span dispatch: the live production form
+                # (chunk-64 tables instead of the blocked form's
+                # [O, M, S+1] per-object tables; PERF.md has its time)
                 return [np.asarray(self._span_mix(1))]
             if want_qnorm:
                 self.session.config = dataclasses.replace(
@@ -560,7 +559,7 @@ class StreamingEngine:
         # the end — amortizes per-dispatch latency like a scan but reuses
         # the already-compiled step (a scan is a separate, much larger
         # compile), and fetches all L blocks in a single stacked transfer
-        # (each separate np.asarray costs a full round trip on remote links)
+        # (each separate np.asarray costs a device-to-host round trip)
         import jax.numpy as jnp
         mixes = []
         for _ in range(self.lookahead):
@@ -641,8 +640,8 @@ class StreamingEngine:
         self.error = None   # a restart after a failure starts clean
         self._stop.clear()
         # Warm EVERY jit variant the steady-state loop will use BEFORE
-        # spawning threads: a first compile can take seconds-to-minutes
-        # (remote TPU), and a daemon thread abandoned inside a native
+        # spawning threads: a first compile takes seconds at full width,
+        # and a daemon thread abandoned inside a native
         # compile call aborts the process at interpreter exit. The session
         # owns the variant set and snapshots/restores its own state
         # (session.warmup); the engine just declares which optional paths

@@ -1,12 +1,12 @@
 """Profiling & tracing — first-class observability the reference lacks.
 
 The reference's only runtime telemetry is the audio buffer-health ring
-(SURVEY.md section 5 'Tracing/profiling: none'). The TPU build adds:
+(SURVEY.md section 5 'Tracing/profiling: none'). This build adds:
 
 - :class:`BlockProfiler` — host-side per-block latency statistics against the
   real-time deadline (block_size / sample_rate), with a jitter histogram.
 - :func:`device_trace` — context manager around ``jax.profiler.trace`` for
-  XLA/TPU timeline capture (view with TensorBoard or xprof).
+  XLA device timeline capture (view with TensorBoard or xprof).
 - :class:`Timer` — tiny scoped wall-clock timer for host paths.
 """
 from __future__ import annotations

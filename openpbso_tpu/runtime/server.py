@@ -35,7 +35,7 @@ streams the engine's output over TCP:
 ``AudioServer`` serves one client at a time (a fresh engine per
 connection). ``BroadcastAudioServer`` fans ONE engine's stream out to many
 concurrent clients — the many-listener deployment shape of a 256-object
-TPU scene; each client has a bounded PCM queue so a slow client drops
+GPU scene; each client has a bounded PCM queue so a slow client drops
 blocks instead of stalling the shared synthesis stream.
 """
 from __future__ import annotations
@@ -399,7 +399,7 @@ class AudioServer:
     def _scene_payload(self, msg=None) -> dict:
         """Mesh + metadata for the browser viewer (the reference renders
         the .tet.obj in its libigl viewport, real_time_modal_sound.cpp
-        :508-509; a TPU deployment streams it to the client instead)."""
+        :508-509; a headless deployment streams it to the client instead)."""
         m = self._model_for(int(msg.get("obj", 0)) if msg else 0)
         if m is None:
             raise ValueError("scene command needs a model")
@@ -838,7 +838,7 @@ class _FanoutSink:
 class BroadcastAudioServer(AudioServer):
     """One engine, many clients.
 
-    The reference's deployment is one local listener per process; a TPU
+    The reference's deployment is one local listener per process; a GPU
     scene of hundreds of objects is naturally a shared world that many
     listeners observe, so the serving surface must fan out. One
     StreamingEngine synthesizes continuously for the server's lifetime;

@@ -1,7 +1,7 @@
 """WebSocket bridge + browser demo client for the audio server.
 
 The reference's interaction surface is a native GUI window
-(real_time_modal_sound.cpp / ModalViewer); a TPU deployment is headless, so
+(real_time_modal_sound.cpp / ModalViewer); a GPU deployment is headless, so
 this module serves the same engine to any browser:
 
 - ``GET /``            -> a self-contained demo page (WebAudio playback,

@@ -1,7 +1,7 @@
 """Golden oracle: float64 numpy re-derivation of the reference runtime math.
 
 The reference ships no test suite (SURVEY.md section 4), so this module *is*
-the correctness contract for the TPU build: a direct, scalar-faithful
+the correctness contract for this build: a direct, scalar-faithful
 implementation of
 
 - IIR coefficient construction   (reference modal_integrator.h:48-100)

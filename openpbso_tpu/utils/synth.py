@@ -2,7 +2,7 @@
 
 The reference repo ships only meta pointers to an external dataset (its
 ``assets/meta`` reference real model files that are downloaded separately), so
-the TPU build generates physically plausible synthetic models: an icosphere
+this build generates physically plausible synthetic models: an icosphere
 surface mesh, log-spaced modal frequencies with random orthonormal-ish mode
 shapes, a ceramic-like material, and analytic FFAT cubemaps — all written in
 the reference's exact file formats so the loaders are exercised end-to-end.

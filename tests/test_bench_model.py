@@ -1,10 +1,11 @@
-"""The bench MFU line's analytic FLOP model vs XLA's own cost analysis.
+"""The bench's analytic FLOP model vs XLA's own cost analysis.
 
-bench.py emits a model-based TFLOP/s + MXU-utilization line per run
-(round-3 VERDICT item 8). Its honesty rests on span_flops_per_sample
-tracking the real executable; this pins the model against the compiled
-span's XLA cost analysis so model drift (a new span stage, a changed
-contraction) fails a test instead of silently skewing the telemetry.
+bench.py reports model FLOPs per sample for each cell, the numerator of
+any achieved-rate or roofline figure. Its honesty rests on
+span_flops_per_sample tracking the real executable; this pins the model
+against the compiled span's XLA cost analysis so model drift (a new span
+stage, a changed contraction) fails a test instead of silently skewing
+the telemetry.
 """
 import dataclasses
 

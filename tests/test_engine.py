@@ -191,8 +191,8 @@ def test_stream_exercises_all_step_variants():
 
 def test_lookahead1_span_live_path():
     """A session with lam64 tables streams at lookahead=1 through the
-    single-block span dispatch (the fastest measured live path,
-    docs/PERF.md) — audio matches the per-block step, events still apply,
+    single-block span dispatch (the production live path) — audio
+    matches the per-block step, events still apply,
     and the span cache proves the path was taken."""
     from openpbso_tpu.ops.coeffs import lambda_from_modes
 
@@ -278,9 +278,8 @@ def test_qnorm_cadence_with_even_lookahead():
 
 def test_qnorm_flows_alongside_span_lookahead():
     """The span+qnorm branch: telemetry rides a parallel state probe
-    instead of breaking the span for a synced per-block dispatch
-    (docs/PERF.md 4-min soak found that sync was the dominant health
-    penalty). Audio and qnorm must both flow."""
+    instead of breaking the span for a synced per-block dispatch.
+    Audio and qnorm must both flow."""
     from openpbso_tpu.ops.coeffs import lambda_from_modes
 
     md = synth_mode_data(16, 8)

@@ -160,7 +160,7 @@ def test_compress_map_fidelity_vs_jpeg():
     the uint8 quantization stand-in must hold <= -40 dB, and the real
     JPEG-65 roundtrip (the reference's actual pipeline, via PIL) lands
     near -40 dB — i.e. the stand-in is the *more* accurate of the two
-    (measured table: docs/PERF.md 'FFAT compression')."""
+    (measured: docs/PARITY.md 'Accuracy')."""
     import math
 
     from openpbso_tpu.utils.oracle import ffat_map_val

@@ -249,9 +249,8 @@ def test_step_multi_equals_step_block_sequence(dberr):
 
 def test_causal_conv_semantics(dberr):
     """The FFT causal conv matches a naive double-precision convolution
-    and honors strict causality on a delayed unit impulse. (The grouped
-    direct-conv alternative was measured 6x slower on TPU and removed;
-    docs/PERF.md records the study.)"""
+    and honors strict causality on a delayed unit impulse. (A grouped
+    direct-conv alternative lowers to per-group loops and was removed.)"""
     from openpbso_tpu.ops.integrator import _causal_conv
     rng = np.random.default_rng(4)
     g = rng.standard_normal((6, 256))
@@ -269,9 +268,9 @@ def test_causal_conv_semantics(dberr):
 
 
 def test_contractions_pin_matmul_precision():
-    """XLA's TPU default is ONE bf16 pass per f32 matmul (-52.6 dB at the
-    flagship scale); every correctness-critical contraction must pin
-    HIGHEST. Checked at the jaxpr level so a CPU run still guards it."""
+    """XLA's default float32 matmul on an NVIDIA GPU runs in TF32; every
+    correctness-critical contraction must pin its precision. Checked at
+    the jaxpr level so a CPU run still guards it."""
     import jax
 
     from openpbso_tpu.ops.integrator import (PRECISION, _mode_reduce,

@@ -1,4 +1,4 @@
-"""Round-5 advisor burn-down (ADVICE.md round 4, all three findings).
+"""Round-5 advisor burn-down (two findings of the round-4 review).
 
 1. The sustained noise counter is chunking-invariant across the 2^30-sample
    clock rebase: _maybe_rebase subtracts whole REBASE_PERIOD multiples and
@@ -9,15 +9,8 @@
    magnitude >= 1) before mutating state — reachable from the wire via the
    ``arparam`` command, and an unstable tuning would overflow the host
    impulse tables to inf/NaN and poison whole spans.
-3. bench.py's honest last-resort outage line carries a machine-readable
-   "status": "no_measurement" so trend consumers can drop it instead of
-   reading an outage as a performance collapse.
 """
 import dataclasses
-import importlib.util
-import os
-import subprocess
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -109,29 +102,6 @@ def test_engine_rejects_unstable_tuning_at_enqueue():
     engine = StreamingEngine(_session(), RawCollectorSink())
     with pytest.raises(ValueError, match="unstable"):
         engine.set_ar_params(0, a=(1.2, 0.3))
-
-
-def test_bench_outage_line_carries_status(monkeypatch, capsys):
-    """When every guarded child is lost, the single JSON line still prints
-    — now with a machine-readable no_measurement marker."""
-    import json
-    spec = importlib.util.spec_from_file_location(
-        "bench", os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "bench.py"))
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-
-    def fake_run(cmd, **kw):
-        raise subprocess.TimeoutExpired(cmd, kw.get("timeout"))
-
-    monkeypatch.setattr(subprocess, "run", fake_run)
-    monkeypatch.setattr(sys, "argv", ["bench.py"])
-    bench.main()
-    out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1                      # one-JSON-line contract holds
-    parsed = json.loads(out[0])
-    assert parsed["status"] == "no_measurement"
-    assert parsed["value"] == 0.0
 
 
 def test_ar_stability_radius_nonfinite_is_inf():

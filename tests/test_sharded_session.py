@@ -89,6 +89,23 @@ def test_sharded_session_hetero_span(dberr):
     assert dberr(a, b) <= -100
 
 
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2)])
+def test_sharded_superchunk_span(mesh_shape, dberr):
+    """A span long enough for the two-level superchunk tables (>= 64
+    chunks; shared banks) carries their lam^(dC) powers onto the mesh:
+    the spans every full-width offline bake dispatches."""
+    sh, ref, m = _pair(mesh_shape)
+    nb = 256                      # 32768 samples -> 64 chunks of 512
+    assert sh.span_tables_for(nb).superchunk > 1
+    space = np.linspace(0.2, 1.0, m)
+    for s in (sh, ref):
+        s.hit(3, space, kind="gaussian", width_us=300.0)
+    a = sh.render_multi(nb, blocks_per_dispatch=nb)
+    b = ref.render_multi(nb, blocks_per_dispatch=nb)
+    assert np.abs(b).max() > 0
+    assert dberr(a, b) <= -100
+
+
 def test_sharded_session_xfade_and_sustained(synth_model_root, dberr):
     """listener-move transfer ramp + sustained channel under SPMD."""
     from openpbso_tpu.io.meta import resolve_model_dir
@@ -399,9 +416,10 @@ def test_sharded_retuned_sustained_span(dberr):
 
 @pytest.mark.parametrize("case", ["impact", "sustained", "complex"])
 def test_span_dispatch_exactly_one_psum(case):
-    """The SPMD span's headline ICI property, verified STRUCTURALLY in
-    the compiled HLO (real multi-chip hardware is unavailable; this pins
-    the claim the docstring makes): one span dispatch lowers to exactly
+    """The SPMD span's headline interconnect property, verified
+    STRUCTURALLY in the compiled HLO (the CPU suite has no real
+    interconnect; this pins the claim the docstring makes): one span
+    dispatch lowers to exactly
     ONE all-reduce, of the [N, C] mix — the mode-partial hom/g sums stay
     partial through the linear conv/mixdown and reduce together with the
     object-axis sum (parallel/sharding.py::make_sharded_span) — and to

@@ -1,4 +1,4 @@
-"""Span integrator (ops/span.py): N blocks in one MXU dispatch.
+"""Span integrator (ops/span.py): N blocks in one dispatch.
 
 Correctness contract: step_span over N = n_blocks * S samples must match
 running step_block (blocked backend) n_blocks times — same constant
@@ -73,8 +73,8 @@ def _seeded_state(bank, n_blocks, seed=0):
 
 def test_choose_radix():
     # span-scaled default: min(512, max(64, span // 8)) — small chunks for
-    # single-block (live) spans where table HBM dominates, 512 for long
-    # offline spans (docs/PERF.md sweeps)
+    # single-block (live) spans where table traffic dominates, 512 for
+    # long offline spans
     assert choose_radix(512) == 64
     assert choose_radix(512 * 8) == 512
     assert choose_radix(512 * 512) == 512
@@ -269,10 +269,10 @@ def test_superchunk_hierarchy_matches_single_level(layout, dberr):
     if layout == "shared":
         assert tables.superchunk > 1, "expected superchunk tables at X=64"
     else:
-        # hetero spans keep the single-level scan by default (the
-        # round-3 einsum mixing measured slower, ops/span.py); the
-        # round-4 scan-mix form (pass A/C in _chunk_start_states) is
-        # opt-in via hetero_superchunk pending its TPU A/B
+        # hetero spans keep the single-level scan by default (an
+        # einsum mixing form measured slower, ops/span.py); the
+        # scan-mix form (pass A/C in _chunk_start_states) is opt-in via
+        # hetero_superchunk pending its GPU A/B
         assert tables.superchunk == 1
         tables = build_span_tables(lam64, n_blocks * S,
                                    num_modes=bank.num_modes, radix=S,
